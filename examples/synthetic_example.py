@@ -8,9 +8,9 @@ then runs the full pipeline.
 Usage:
     python examples/synthetic_example.py [work_dir] [--cpu]
 
-``--cpu`` forces the CPU backend (JAX_PLATFORMS is ignored by this
-stack) — lets the example run while the TPU is claimed by another
-process (only one TPU process at a time on this host).
+``--cpu`` forces the CPU backend — lets the example run while another
+JAX process holds the GPU (a JAX process reserves most of the card's
+memory when it starts).
 """
 import os
 import sys
@@ -24,9 +24,9 @@ if "--cpu" in sys.argv:
 
 import numpy as np
 
-from multimodal_3d_image_segmentation_tpu.data.nifti import write_image
-from multimodal_3d_image_segmentation_tpu.runtime.config import get_config
-from multimodal_3d_image_segmentation_tpu.runtime.run import run
+from multimodal_3d_image_segmentation.data.nifti import write_image
+from multimodal_3d_image_segmentation.runtime.config import get_config
+from multimodal_3d_image_segmentation.runtime.run import run
 
 SHAPE = (32, 36, 28)  # (z, y, x)
 N_CASES = 8

@@ -15,9 +15,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from multimodal_3d_image_segmentation_tpu.data.nifti import write_image
-from multimodal_3d_image_segmentation_tpu.runtime.config import get_config
-from multimodal_3d_image_segmentation_tpu.runtime.run import run
+from multimodal_3d_image_segmentation.data.nifti import write_image
+from multimodal_3d_image_segmentation.runtime.config import get_config
+from multimodal_3d_image_segmentation.runtime.run import run
 
 SHAPE = (48, 40)  # (y, x) slice
 N_CASES = 10

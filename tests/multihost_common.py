@@ -20,10 +20,10 @@ def build_step():
     """A real (small) model + optimizer + jitted train step."""
     import jax
     import jax.numpy as jnp
-    from multimodal_3d_image_segmentation_tpu import losses, models
-    from multimodal_3d_image_segmentation_tpu.runtime import (
+    from multimodal_3d_image_segmentation import losses, models
+    from multimodal_3d_image_segmentation.runtime import (
         build_optimizer, create_train_state)
-    from multimodal_3d_image_segmentation_tpu.runtime.steps import (
+    from multimodal_3d_image_segmentation.runtime.steps import (
         make_train_step)
 
     model = models.HNOSegXS(SHAPE[1], NUM_CLASSES, 4, [1], (3, 3, 3))

@@ -28,7 +28,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    from multimodal_3d_image_segmentation_tpu.parallel import multihost
+    from multimodal_3d_image_segmentation.parallel import multihost
 
     multihost.initialize(coordinator_address=coordinator,
                          num_processes=num_procs, process_id=proc_id)
@@ -38,7 +38,7 @@ def main():
 
     import numpy as np
     import jax.numpy as jnp
-    from multimodal_3d_image_segmentation_tpu.parallel.mesh import (
+    from multimodal_3d_image_segmentation.parallel.mesh import (
         make_mesh, replicated)
     from tests.multihost_common import (GLOBAL_BATCH, SHAPE, build_step,
                                         global_data)

@@ -1,17 +1,20 @@
 """Optional golden-parity oracle: the upstream PyTorch reference.
 
-When the reference checkout is available (as it is in the development
-environment at /root/reference), tests import its modules and compare our
-JAX implementation numerically against them with identical weights. When it
-is absent, the parity tests skip and the analytic/FFT-oracle tests still
-guarantee correctness.
+When the reference checkout is available (``$PYTORCH_REFERENCE_PATH``, by
+default a ``reference/`` directory beside this repository), tests import its
+modules and compare our JAX implementation numerically against them with
+identical weights. When it is absent, the parity tests skip and the
+analytic/FFT-oracle tests still guarantee correctness.
 """
 import os
 import sys
 
 import pytest
 
-REFERENCE_PATH = os.environ.get("M3SEG_REFERENCE_PATH", "/root/reference")
+REFERENCE_PATH = os.environ.get(
+    "PYTORCH_REFERENCE_PATH",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "reference"))
 
 
 def get_reference_nets():

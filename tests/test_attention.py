@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multimodal_3d_image_segmentation_tpu.ops.attention import (
+from multimodal_3d_image_segmentation.ops.attention import (
     HartleyMultiHeadAttention)
 from tests.reference_oracle import (get_reference_nets, to_torch_channel_first,
                                     from_torch_channel_first)

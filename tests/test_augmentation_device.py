@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from multimodal_3d_image_segmentation_tpu.data.augmentation import (
+from multimodal_3d_image_segmentation.data.augmentation import (
     ImageTransform, apply_transform, transform_matrix_offset_center)
-from multimodal_3d_image_segmentation_tpu.data.augmentation_device import (
+from multimodal_3d_image_segmentation.data.augmentation_device import (
     affine_nn_device, make_device_augment)
 
 

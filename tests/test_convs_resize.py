@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multimodal_3d_image_segmentation_tpu.ops.convs import Conv, ConvTranspose
-from multimodal_3d_image_segmentation_tpu.ops.resize import (resize_linear,
+from multimodal_3d_image_segmentation.ops.convs import Conv, ConvTranspose
+from multimodal_3d_image_segmentation.ops.resize import (resize_linear,
                                                              resize_nearest)
-from multimodal_3d_image_segmentation_tpu.ops.padcrop import spatial_padcrop
+from multimodal_3d_image_segmentation.ops.padcrop import spatial_padcrop
 from tests.reference_oracle import (to_torch_channel_first,
                                     from_torch_channel_first)
 

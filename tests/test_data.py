@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from multimodal_3d_image_segmentation_tpu.data import (
+from multimodal_3d_image_segmentation.data import (
     ImageTransform, InputData, MultimodalImageDataset, NiftiImage,
     apply_transform, normalize_data, normalize_modalities, read_image,
     read_img, write_image, get_spacing)
-from multimodal_3d_image_segmentation_tpu.data.partitioning import (
+from multimodal_3d_image_segmentation.data.partitioning import (
     natural_sorted, partitioning)
 
 
@@ -264,7 +264,7 @@ def test_partitioning_brats19_naming(tmp_path):
 
 
 def test_load_np_data(tmp_path):
-    from multimodal_3d_image_segmentation_tpu.utils.io import load_np_data
+    from multimodal_3d_image_segmentation.utils.io import load_np_data
     a = np.arange(6).reshape(2, 3)
     np.save(tmp_path / "a.npy", a)
     np.savez(tmp_path / "b.npz", data=a * 2)
@@ -276,7 +276,7 @@ def test_load_np_data(tmp_path):
 
 def test_native_fallback_equivalence():
     """Native C++ kernels and the numpy fallbacks agree (z-score path)."""
-    from multimodal_3d_image_segmentation_tpu.data import native
+    from multimodal_3d_image_segmentation.data import native
     rng = np.random.default_rng(11)
     d = rng.random((20, 22, 18)).astype(np.float32) * 50
     d[d < 10] = 0
@@ -323,7 +323,7 @@ def test_native_gunzip_matches_python(tmp_path):
     """Native zlib decompressor returns byte-identical content; batch and
     single paths agree with the Python reader."""
     import gzip
-    from multimodal_3d_image_segmentation_tpu.data import native, nifti
+    from multimodal_3d_image_segmentation.data import native, nifti
     if not native.available():
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(1)

@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from multimodal_3d_image_segmentation_tpu import losses, models
-from multimodal_3d_image_segmentation_tpu.runtime import (
+from multimodal_3d_image_segmentation import losses, models
+from multimodal_3d_image_segmentation.runtime import (
     build_optimizer, build_schedule, create_train_state, make_train_step)
 
 
@@ -33,9 +33,9 @@ def _blob_batch(rng, batch=2, shape=(16, 16, 12), n_classes=3):
 
 @pytest.mark.parametrize("model", [
     models.HNOSegXS(2, 3, 8, [2, 2], (3, 4, 4)),
-    models.HNOSegXS(2, 3, 8, [2, 2], (3, 4, 4), use_pallas=True),
+    models.HNOSegXS(2, 3, 8, [2, 2], (3, 4, 4), use_deep_supervision=True),
     models.NeuralOperatorSeg(2, 3, 6, 2, (3, 4, 4), "Hartley"),
-], ids=["hnosegxs", "hnosegxs-pallas", "hnoseg"])
+], ids=["hnosegxs", "hnosegxs-deepsup", "hnoseg"])
 def test_model_learns_blobs(model):
     rng = np.random.default_rng(0)
     x, y = _blob_batch(rng)

@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multimodal_3d_image_segmentation_tpu import losses
+from multimodal_3d_image_segmentation import losses
 from tests.reference_oracle import get_reference_nets
 
 

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from multimodal_3d_image_segmentation_tpu.metrics import (
+from multimodal_3d_image_segmentation.metrics import (
     compute_regional_metrics, dice_binary, get_labels_union, hd95_binary,
     statistics_regional, surface_dice_binary)
 
@@ -64,7 +64,7 @@ def test_compute_regional_metrics_keys():
 
 
 def test_statistics_regional_outputs(tmp_path):
-    from multimodal_3d_image_segmentation_tpu.data.nifti import write_image
+    from multimodal_3d_image_segmentation.data.nifti import write_image
     rng = np.random.default_rng(0)
     y_true, y_pred, files = [], [], []
     for i in range(3):
@@ -98,7 +98,7 @@ def test_statistics_regional_outputs(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_surfel_table_closed_forms():
-    from multimodal_3d_image_segmentation_tpu.surfels import (
+    from multimodal_3d_image_segmentation.surfels import (
         neighbour_code_to_surface_area)
     t = neighbour_code_to_surface_area((1.0, 1.0, 1.0))
     assert t[0] == 0.0 and t[255] == 0.0
@@ -121,7 +121,7 @@ def test_surfel_table_closed_forms():
 def test_surfel_table_rotation_equivariant():
     """Total area must be invariant under the 24 cube rotations."""
     import itertools
-    from multimodal_3d_image_segmentation_tpu.surfels import (
+    from multimodal_3d_image_segmentation.surfels import (
         neighbour_code_to_surface_area)
     t = neighbour_code_to_surface_area((1.0, 1.0, 1.0))
     corners = [np.array(c) for c in itertools.product((0, 1), repeat=3)]
@@ -150,7 +150,7 @@ def test_surfel_table_rotation_equivariant():
 
 
 def test_surfel_map_single_voxel_and_slab():
-    from multimodal_3d_image_segmentation_tpu.surfels import surfel_map
+    from multimodal_3d_image_segmentation.surfels import surfel_map
     m = np.zeros((7, 7, 7), bool)
     m[3, 3, 3] = True  # octahedron around one voxel: 8 corner triangles
     assert surfel_map(m, (1, 1, 1)).sum() == pytest.approx(np.sqrt(3))
@@ -166,7 +166,7 @@ def test_surfel_map_single_voxel_and_slab():
 def test_subvoxel_distances_parallel_planes():
     """gt slab vs 1-voxel-shifted slab: plane-to-plane distances are 1mm
     on the face sheets; surface dice at tol>=1 is 1, at tol<1 is < 1."""
-    from multimodal_3d_image_segmentation_tpu.metrics import (
+    from multimodal_3d_image_segmentation.metrics import (
         compute_robust_hausdorff, compute_surface_dice_at_tolerance,
         compute_surface_distances)
     a = np.zeros((16, 16, 16), bool)
@@ -192,7 +192,7 @@ def test_subvoxel_distances_parallel_planes():
 
 
 def test_voxel_method_still_available():
-    from multimodal_3d_image_segmentation_tpu.metrics import (
+    from multimodal_3d_image_segmentation.metrics import (
         compute_surface_dice_at_tolerance, compute_surface_distances)
     a = np.zeros((10, 10, 10), bool)
     a[3:7, 3:7, 3:7] = True
@@ -207,7 +207,7 @@ def test_subvoxel_matches_surface_distance_package():
     """Bit-parity with DeepMind's surface-distance package when installed
     (not in this image; the golden cases above pin the construction)."""
     sd_pkg = pytest.importorskip("surface_distance")
-    from multimodal_3d_image_segmentation_tpu.metrics import (
+    from multimodal_3d_image_segmentation.metrics import (
         compute_robust_hausdorff, compute_surface_dice_at_tolerance,
         compute_surface_distances)
     rng = np.random.default_rng(0)
@@ -228,9 +228,9 @@ def test_surfel_2d_closed_forms_and_rotation():
     equivariance, single-pixel total, and 2D distances through the metric
     entry points (exercised by the 2D pipeline/statistics path)."""
     import itertools
-    from multimodal_3d_image_segmentation_tpu.surfels import (
+    from multimodal_3d_image_segmentation.surfels import (
         neighbour_code_to_surface_length, surfel_map)
-    from multimodal_3d_image_segmentation_tpu.metrics import (
+    from multimodal_3d_image_segmentation.metrics import (
         compute_surface_dice_at_tolerance, compute_surface_distances,
         hd95_binary, surface_dice_binary)
 
@@ -280,7 +280,7 @@ def test_surface_metrics_regression_fixture():
     oracle when the package is installable."""
     import json
     import os
-    from multimodal_3d_image_segmentation_tpu.metrics import (
+    from multimodal_3d_image_segmentation.metrics import (
         compute_robust_hausdorff, compute_surface_dice_at_tolerance,
         compute_surface_distances)
 
@@ -311,7 +311,7 @@ def test_surfel_area_complement_symmetry_nonambiguous():
     legitimately break this (the inside-corner-separation convention
     flips which diagonal gets separated) — they are excluded, not
     tolerated."""
-    from multimodal_3d_image_segmentation_tpu.surfels import (
+    from multimodal_3d_image_segmentation.surfels import (
         _FACES, neighbour_code_to_surface_area)
 
     def ambiguous(code):
@@ -342,7 +342,7 @@ def test_surfel_area_smooth_surface_estimator():
     shares this bias), and the ratio must be RESOLUTION-STABLE (the
     estimator converges). Catches any wrong table entry or mis-scaled
     spacing without referencing this repo's own construction."""
-    from multimodal_3d_image_segmentation_tpu.surfels import surfel_map
+    from multimodal_3d_image_segmentation.surfels import surfel_map
 
     def ball_ratio(n, r, spacing):
         gs = [(np.arange(n) - (n - 1) / 2) * s for s in spacing]

@@ -12,16 +12,15 @@ only activation-storage rounding. These tests pin:
   * the runtime maps ``[model] compute_dtype = mixed``.
 
 Quality at the reference's 0.1% Dice bar is adjudicated on trained
-networks on the TPU (tools/bench_precision.py, BENCH_PRECISION.json) —
-not here.
+networks on the GPU (tools/bench_precision.py) — not here.
 """
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from multimodal_3d_image_segmentation_tpu import models
-from multimodal_3d_image_segmentation_tpu.ops import spectral
+from multimodal_3d_image_segmentation import models
+from multimodal_3d_image_segmentation.ops import spectral
 
 
 @pytest.fixture(autouse=True)
@@ -109,7 +108,7 @@ def test_model_mixed_routes_and_does_not_regress(family):
 
 
 def test_run_config_maps_mixed(tmp_path):
-    from multimodal_3d_image_segmentation_tpu.runtime.run import _build_model
+    from multimodal_3d_image_segmentation.runtime.run import _build_model
 
     class _Data:
         def get_num_x_modalities(self):

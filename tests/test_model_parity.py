@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from multimodal_3d_image_segmentation_tpu import models
-from multimodal_3d_image_segmentation_tpu.utils import (
+from multimodal_3d_image_segmentation import models
+from multimodal_3d_image_segmentation.utils import (
     import_reference_state_dict)
 from tests.reference_oracle import (get_reference_nets, to_torch_channel_first,
                                     from_torch_channel_first)
@@ -139,9 +139,9 @@ def test_hnosegxs_2d_parity():
 
 def test_export_reference_state_dict_roundtrip():
     """Our params -> reference state dict -> torch reference model produces
-    identical outputs (TPU-trained weights usable in the reference)."""
+    identical outputs (weights trained here usable in the reference)."""
     nets, torch = get_reference_nets()
-    from multimodal_3d_image_segmentation_tpu.utils import (
+    from multimodal_3d_image_segmentation.utils import (
         export_reference_state_dict)
 
     kw = dict(in_channels=2, out_channels=3, filters=8,
@@ -168,50 +168,3 @@ def test_export_reference_state_dict_roundtrip():
     for a, b in zip(jax.tree_util.tree_leaves(back),
                     jax.tree_util.tree_leaves(params)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize("use_snn,activation", [(False, "elu"),
-                                                (True, "selu")])
-def test_vnetds_flat_path_full_model_parity(monkeypatch, use_snn,
-                                            activation):
-    """Golden parity vs the torch reference THROUGH the flat Pallas path
-    (TPU gate bypassed; kernels run in interpret mode) — the production
-    fast path carries the same reference weights to the same outputs."""
-    from multimodal_3d_image_segmentation_tpu.models import architectures
-
-    monkeypatch.setattr(
-        architectures.VNetDS, "_use_flat",
-        lambda self, x_cf: (self.use_pallas and self.ndim == 5
-                            and self.channel_first_io
-                            and x_cf.shape[0] == 1))
-
-    nets, torch = get_reference_nets()
-    kw = dict(in_channels=2, out_channels=3, base_num_filters=4,
-              num_blocks=[1, 2, 2], right_leg_indexes=[0, 1, 2],
-              activation=activation, use_snn=use_snn)
-    ref = nets.VNetDS(**kw)
-    ours = models.VNetDS(**kw, use_pallas=True)
-    x = _rand((1, 20, 18, 16, 2), 4)
-    _run_parity(ref, ours, x, torch, atol=5e-4)
-
-
-def test_hnosegxs_flat_tower_parity(monkeypatch):
-    """Golden parity vs the torch reference through the experimental
-    HNOSeg-XS flat tower (use_flat)."""
-    from multimodal_3d_image_segmentation_tpu.models import hnosegxs
-
-    monkeypatch.setattr(
-        hnosegxs.HNOSegXS, "_use_flat_blocks",
-        lambda self, x_cf: (self.use_flat and self.ndim == 5
-                            and self.channel_first_io
-                            and x_cf.shape[0] == 1
-                            and self.weights_type == "shared"
-                            and self.use_block_concat))
-
-    nets, torch = get_reference_nets()
-    kw = dict(in_channels=2, out_channels=3, filters=8,
-              num_transform_blocks=[2, 2], num_modes=(3, 4, 4))
-    ref = nets.HNOSegXS(**kw)
-    ours = models.HNOSegXS(**kw, use_flat=True)
-    x = _rand((1, 16, 16, 12, 2), 6)
-    _run_parity(ref, ours, x, torch, atol=5e-4)

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_3d_image_segmentation_tpu import models
+from multimodal_3d_image_segmentation import models
 
 
 def n_params(params):
@@ -107,7 +107,7 @@ def test_models_2d():
 @pytest.mark.slow
 def test_hnosegxs_remat_matches():
     """use_remat trades memory for FLOPs without changing values/grads."""
-    from multimodal_3d_image_segmentation_tpu import losses
+    from multimodal_3d_image_segmentation import losses
     kw = dict(in_channels=2, out_channels=3, filters=8,
               num_transform_blocks=[2, 2], num_modes=(3, 4, 4))
     m0 = models.HNOSegXS(**kw)
@@ -128,30 +128,3 @@ def test_hnosegxs_remat_matches():
     for a, b in zip(jax.tree_util.tree_leaves(g0),
                     jax.tree_util.tree_leaves(g1)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
-
-
-@pytest.mark.parametrize("build", [
-    lambda: models.NeuralOperatorSeg(4, 4, 8, 2, (3, 4, 4), "Fourier",
-                                     use_pallas=True),
-    lambda: models.NeuralOperatorSeg(4, 4, 8, 2, (3, 4, 4), "Hartley",
-                                     use_pallas=True),
-    lambda: models.HartleyMHASeg(4, 4, 8, 4, 2, (3, 4, 4), 2,
-                                 use_pallas=True),
-])
-def test_pallas_entry_matches_module_entry(build, monkeypatch):
-    """The module path's Pallas conv_in route (``_use_pallas_entry``)
-    must produce the XLA entry's numerics with an identical param tree
-    (checkpoints interchangeable)."""
-    model = build()
-    x = jnp.asarray(np.random.default_rng(0).standard_normal(
-        (1, 4, 32, 28, 22)).astype(np.float32))
-    monkeypatch.setenv("M3SEG_PALLAS_ENTRY", "0")
-    p0 = model.init(jax.random.PRNGKey(0), jnp.zeros_like(x))["params"]
-    y0 = model.apply({"params": p0}, x)
-    monkeypatch.setenv("M3SEG_PALLAS_ENTRY", "1")
-    p1 = model.init(jax.random.PRNGKey(0), jnp.zeros_like(x))["params"]
-    assert (jax.tree_util.tree_structure(p0)
-            == jax.tree_util.tree_structure(p1))
-    y1 = model.apply({"params": p0}, x)
-    np.testing.assert_allclose(np.asarray(y0), np.asarray(y1),
-                               atol=2e-6, rtol=0)

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multimodal_3d_image_segmentation_tpu.ops.operators import (
+from multimodal_3d_image_segmentation.ops.operators import (
     FourierOperator, HartleyOperator)
 from tests.reference_oracle import (get_reference_nets, to_torch_channel_first,
                                     from_torch_channel_first)
@@ -179,7 +179,7 @@ def test_export_operator_bias_shapes_load_into_reference():
     operator bias would be rejected (``nets/hartley_operator.py:79``)."""
     nets, torch = get_reference_nets()
     import jax
-    from multimodal_3d_image_segmentation_tpu.utils import (
+    from multimodal_3d_image_segmentation.utils import (
         export_reference_state_dict)
 
     cin, cout, modes = 3, 5, (3, 4, 2)

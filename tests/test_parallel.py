@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multimodal_3d_image_segmentation_tpu import models, losses
-from multimodal_3d_image_segmentation_tpu.parallel import (
+from multimodal_3d_image_segmentation import models, losses
+from multimodal_3d_image_segmentation.parallel import (
     batch_sharding, make_mesh, replicated, volume_sharding)
-from multimodal_3d_image_segmentation_tpu.runtime import (
+from multimodal_3d_image_segmentation.runtime import (
     build_optimizer, create_train_state, make_train_step)
-from multimodal_3d_image_segmentation_tpu.ops import spectral
+from multimodal_3d_image_segmentation.ops import spectral
 
 
 def _model_and_data(batch=4):
@@ -84,7 +84,7 @@ def test_single_volume_spatial_sharding_inference():
 
 
 def test_multihost_helpers_single_process():
-    from multimodal_3d_image_segmentation_tpu.parallel import multihost
+    from multimodal_3d_image_segmentation.parallel import multihost
     assert not multihost.is_multihost()
     assert multihost.process_count() == 1
     items = list(range(10))
@@ -102,9 +102,8 @@ def test_multihost_helpers_single_process():
 def test_dryrun_multichip_bare_subprocess():
     """Invoke __graft_entry__.dryrun_multichip(8) exactly the way the
     driver does: a fresh interpreter with NO conftest and NO
-    XLA_FLAGS/JAX_PLATFORMS provisioning in the environment. Round 1
-    shipped this path broken (MULTICHIP_r01.json ok=false); this pins the
-    driver calling convention.
+    XLA_FLAGS/JAX_PLATFORMS provisioning in the environment; this pins
+    that calling convention.
     """
     import os
     import subprocess
@@ -173,255 +172,3 @@ def test_multihost_two_process_train_step(tmp_path):
 
     np.testing.assert_allclose(result["loss"], float(loss), rtol=1e-5)
     np.testing.assert_allclose(result["param_fingerprint"], fp, rtol=1e-5)
-
-
-@pytest.mark.slow
-def test_shard_map_apply_composes_pallas_with_dp(monkeypatch):
-    """use_pallas + data-parallel mesh via make_sharded_apply: each device
-    traces per-device batch 1, so the kernel gates engage inside the
-    shard_map (interpret mode on CPU); numerics match the unsharded
-    module path (round-2 VERDICT item 3)."""
-    from multimodal_3d_image_segmentation_tpu.models import architectures
-    from multimodal_3d_image_segmentation_tpu.runtime.steps import (
-        make_sharded_apply)
-
-    # bypass the TPU-backend gate so the fused path runs (interpret mode)
-    monkeypatch.setattr(
-        architectures.NeuralOperatorSeg, "_use_fused_tower",
-        lambda self, x: (self.use_pallas and x.shape[0] == 1
-                         and self.use_block_skip))
-
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.standard_normal((4, 2, 8, 9, 6)).astype(np.float32))
-    ref = architectures.NeuralOperatorSeg(2, 3, 4, 2, (2, 2, 2), "Hartley")
-    fused = architectures.NeuralOperatorSeg(2, 3, 4, 2, (2, 2, 2),
-                                            "Hartley", use_pallas=True)
-    params = ref.init(jax.random.PRNGKey(0), x[:1])["params"]
-    want = np.asarray(ref.apply({"params": params}, x))
-
-    mesh = make_mesh(n_data=4, n_spatial=1)
-    apply_fn = make_sharded_apply(fused, mesh)
-    xs = jax.device_put(x, batch_sharding(mesh, x.shape))
-    ps = jax.device_put({"params": params}, replicated(mesh))
-    got = np.asarray(jax.jit(apply_fn)(ps, xs))
-    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
-
-    # gradients flow through the shard_map (DP psum via transpose)
-    def loss(p, xv):
-        return jnp.sum(apply_fn({"params": p}, xv) ** 2)
-
-    g = jax.grad(loss)(params, xs)
-    def loss_ref(p, xv):
-        return jnp.sum(ref.apply({"params": p}, xv) ** 2)
-    g_ref = jax.grad(loss_ref)(params, x)
-    ga = jax.tree_util.tree_leaves(g)
-    gb = jax.tree_util.tree_leaves(g_ref)
-    for a, b in zip(ga, gb):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=5e-3, rtol=5e-3)
-
-    # non-divisible batch: the replicated fallback must route through
-    # the module path (an unpartitioned pallas_call inside the mesh jit
-    # would hit the SPMD partitioner) and still match numerics
-    x3 = x[:3]
-    want3 = np.asarray(ref.apply({"params": params}, x3))
-    got3 = np.asarray(jax.jit(apply_fn)(ps, x3))
-    np.testing.assert_allclose(got3, want3, atol=2e-4, rtol=1e-3)
-
-
-class TestHaloShardedConv:
-    """Depth-sharded flat Pallas conv (parallel/halo.py): the kernel∘
-    spatial-sharding composition must match single-device conv3_flat
-    exactly (same kernel, same precision class, global GN moments)."""
-
-    def _case(self, d=16, h=10, w=9, ci=6, co=5, seed=0):
-        from multimodal_3d_image_segmentation_tpu.ops.flatvol import (
-            flat_geom, to_flat)
-        rng = np.random.default_rng(seed)
-        x4 = rng.standard_normal((ci, d, h, w)).astype(np.float32)
-        k = (rng.standard_normal((3, 3, 3, ci, co)) * 0.2).astype(
-            np.float32)
-        b = rng.standard_normal((co,)).astype(np.float32)
-        g = flat_geom(d, h, w)
-        return jnp.asarray(x4), jnp.asarray(k), jnp.asarray(b), g, \
-            to_flat(jnp.asarray(x4), g)
-
-    @pytest.mark.parametrize("n_spatial", [2, 4, 8])
-    def test_matches_single_device(self, n_spatial):
-        from multimodal_3d_image_segmentation_tpu.kernels.conv3d_flat \
-            import conv3_flat
-        from multimodal_3d_image_segmentation_tpu.parallel.halo import (
-            conv3_flat_sharded)
-        x4, k, b, g, xf = self._case()
-        want, want_stats = conv3_flat(xf, k, b, g, emit_stats=True)
-        mesh = make_mesh(n_data=8 // n_spatial, n_spatial=n_spatial)
-        got, got_stats = conv3_flat_sharded(xf, k, b, g, mesh,
-                                            emit_stats=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   atol=1e-5)
-        np.testing.assert_allclose(np.asarray(got_stats),
-                                   np.asarray(want_stats), rtol=1e-5)
-
-    def test_residual_tap_and_prologue(self):
-        from multimodal_3d_image_segmentation_tpu.kernels.conv3d_flat \
-            import conv3_flat
-        from multimodal_3d_image_segmentation_tpu.parallel.halo import (
-            conv3_flat_sharded)
-        x4, k, b, g, xf = self._case(d=12)
-        mesh = make_mesh(n_data=2, n_spatial=4)
-        rng = np.random.default_rng(3)
-        rk = jnp.asarray(rng.standard_normal((4, 6)).astype(np.float32))
-        rb = jnp.asarray(rng.standard_normal((4,)).astype(np.float32))
-        want, want_r = conv3_flat(xf, k, b, g, residual=(rk, rb))
-        got, got_r = conv3_flat_sharded(xf, k, b, g, mesh,
-                                        residual=(rk, rb))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   atol=1e-5)
-        np.testing.assert_allclose(np.asarray(got_r), np.asarray(want_r),
-                                   atol=1e-5)
-
-        scale = jnp.asarray(rng.standard_normal((6,)).astype(np.float32))
-        shift = jnp.asarray(rng.standard_normal((6,)).astype(np.float32))
-        want_p = conv3_flat(xf, k, b, g, prologue=(scale, shift),
-                            prologue_act="elu")
-        got_p = conv3_flat_sharded(xf, k, b, g, mesh,
-                                   prologue=(scale, shift),
-                                   prologue_act="elu")
-        np.testing.assert_allclose(np.asarray(got_p), np.asarray(want_p),
-                                   atol=1e-5)
-
-    def test_gradients_match(self):
-        from multimodal_3d_image_segmentation_tpu.kernels.conv3d_flat \
-            import conv3_flat
-        from multimodal_3d_image_segmentation_tpu.parallel.halo import (
-            conv3_flat_sharded)
-        x4, k, b, g, xf = self._case(d=8)
-        mesh = make_mesh(n_data=4, n_spatial=2)
-
-        def loss_single(args):
-            xf_, k_, b_ = args
-            return jnp.sum(conv3_flat(xf_, k_, b_, g) ** 2)
-
-        def loss_sharded(args):
-            xf_, k_, b_ = args
-            return jnp.sum(conv3_flat_sharded(xf_, k_, b_, g, mesh) ** 2)
-
-        g1 = jax.grad(loss_single)((xf, k, b))
-        g2 = jax.grad(loss_sharded)((xf, k, b))
-        for a, c in zip(jax.tree_util.tree_leaves(g1),
-                        jax.tree_util.tree_leaves(g2)):
-            np.testing.assert_allclose(np.asarray(c), np.asarray(a),
-                                       rtol=2e-5, atol=1e-4)
-
-    def test_indivisible_depth_raises(self):
-        from multimodal_3d_image_segmentation_tpu.parallel.halo import (
-            conv3_flat_sharded)
-        x4, k, b, g, xf = self._case(d=10)
-        mesh = make_mesh(n_data=2, n_spatial=4)
-        with pytest.raises(ValueError, match="do not divide"):
-            conv3_flat_sharded(xf, k, b, g, mesh)
-
-
-class TestFlatShardedVNet:
-    """Whole-model depth-sharded flat V-Net (parallel/flat_sharded.py):
-    the model-level kernel∘spatial-sharding composition must match the
-    single-device flat forward AND its gradients. The single-device
-    reference forces the flat path (the TPU-only `_use_flat` gate is
-    bypassed — on the CPU mesh both sides run the same interpret-mode
-    kernels, so parity is tight)."""
-
-    @staticmethod
-    def _force_flat(monkeypatch):
-        from multimodal_3d_image_segmentation_tpu.models import (
-            architectures)
-        monkeypatch.setattr(
-            architectures.VNetDS, "_use_flat",
-            lambda self, x_cf: (self.use_pallas and self.ndim == 5
-                                and self.channel_first_io
-                                and x_cf.shape[0] == 1))
-
-    def _setup(self, shape, **kw):
-        kw.setdefault("in_channels", 2)
-        kw.setdefault("out_channels", 3)
-        kw.setdefault("base_num_filters", 4)
-        x = jnp.asarray(np.random.default_rng(0).standard_normal(
-            (1, 2) + shape).astype(np.float32))
-        model = models.VNetDS(**kw, use_pallas=True)
-        params = model.init(jax.random.PRNGKey(0), jnp.zeros_like(x))
-        return model, params, x
-
-    @pytest.mark.parametrize("shape,n,dim,kw", [
-        # both levels sharded, residual taps + DS legs
-        ((14, 12, 12), 2, 0, dict(num_blocks=[1, 2],
-                                  right_leg_indexes=[0, 1])),
-        # deep level replicated (10 -> d0=6: 6%2==0 but local decim odd)
-        ((10, 12, 12), 2, 0, dict(num_blocks=[1, 1],
-                                  right_leg_indexes=[0, 1])),
-        # permuted plane-major axis + 4-way shard
-        ((13, 12, 14), 2, 2, dict(num_blocks=[1, 1],
-                                  right_leg_indexes=[0, 1])),
-        ((30, 12, 12), 4, 0, dict(num_blocks=[1, 1],
-                                  right_leg_indexes=[0])),
-        # snn/selu: no GroupNorm, deferred bare activations
-        ((14, 12, 12), 2, 0, dict(num_blocks=[1, 1], use_snn=True,
-                                  activation="selu",
-                                  right_leg_indexes=[0, 1])),
-    ])
-    def test_forward_matches_single_device(self, monkeypatch, shape, n,
-                                           dim, kw):
-        from multimodal_3d_image_segmentation_tpu.parallel.flat_sharded \
-            import make_flat_sharded_apply
-        self._force_flat(monkeypatch)
-        model, params, x = self._setup(shape, **kw)
-        want = np.asarray(model.apply(params, x))
-        mesh = make_mesh(n_data=1, n_spatial=n)
-        apply_fn = make_flat_sharded_apply(model, mesh, dim=dim)
-        got = np.asarray(jax.jit(apply_fn)(params, x))
-        np.testing.assert_allclose(got, want, atol=1e-5)
-
-    def test_gradients_match_single_device(self, monkeypatch):
-        from multimodal_3d_image_segmentation_tpu.parallel.flat_sharded \
-            import make_flat_sharded_apply
-        self._force_flat(monkeypatch)
-        model, params, x = self._setup((14, 12, 12), num_blocks=[1, 1],
-                                       right_leg_indexes=[0, 1])
-        tgt = jnp.asarray(np.random.default_rng(1).standard_normal(
-            model.apply(params, x).shape).astype(np.float32))
-        mesh = make_mesh(n_data=1, n_spatial=2)
-        apply_fn = make_flat_sharded_apply(model, mesh, dim=0)
-
-        def loss(apply, p):
-            return jnp.sum((apply(p, x) - tgt) ** 2)
-
-        want_l, want_g = jax.value_and_grad(
-            lambda p: loss(model.apply, p))(params)
-        got_l, got_g = jax.jit(jax.value_and_grad(
-            lambda p: loss(apply_fn, p)))(params)
-        np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-5)
-        # psum'd GroupNorm moments reassociate float sums: per-element
-        # grads can drift a few ulp relative to the serial reduction
-        for a, c in zip(jax.tree_util.tree_leaves(want_g),
-                        jax.tree_util.tree_leaves(got_g)):
-            np.testing.assert_allclose(np.asarray(c), np.asarray(a),
-                                       rtol=2e-3, atol=1e-4)
-
-    def test_shardable_gate(self):
-        from multimodal_3d_image_segmentation_tpu.parallel.flat_sharded \
-            import flat_vnet_shardable, maybe_flat_sharded_apply
-        # use_resize halves depth to d//2+1: 14 -> 8 (shardable over 2)
-        assert flat_vnet_shardable((14, 12, 12), [1, 1], True, 2) == 0
-        # 16 -> 9 (odd) on every axis: not shardable
-        assert flat_vnet_shardable((16, 16, 16), [1, 1], True, 2) is None
-        # picks the axis that shards the most levels
-        assert flat_vnet_shardable((13, 12, 14), [1, 1], True, 2) == 2
-        mesh = make_mesh(n_data=1, n_spatial=2)
-        vnet = models.VNetDS(2, 3, 4, [1, 1])
-        # no use_pallas -> module path shards transparently, no wrapper
-        assert maybe_flat_sharded_apply(vnet, mesh, (14, 12, 12)) is None
-        assert maybe_flat_sharded_apply(
-            vnet.clone(use_pallas=True), mesh, (14, 12, 12)) is not None
-        assert maybe_flat_sharded_apply(  # non-shardable image size
-            vnet.clone(use_pallas=True), mesh, (16, 16, 16)) is None
-        # other kernel models never route here
-        hno = models.HNOSegXS(2, 3, 8, [2, 2], (3, 4, 4))
-        assert maybe_flat_sharded_apply(hno, mesh, (14, 12, 12)) is None

@@ -4,11 +4,13 @@ Oracle definitions are derived independently from the published math:
 DHT(x) = Re(FFT(x)) - Im(FFT(x)), forward 1/N normalization, inverse none;
 packed corner layout = [0..m-1] ++ [n-m..n-1] per transformed axis.
 """
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multimodal_3d_image_segmentation_tpu.ops import spectral, dhtn
+from multimodal_3d_image_segmentation.ops import spectral, dhtn
 
 
 def np_dht(x, axes, inverse=False):
@@ -210,33 +212,63 @@ def test_mode_clipping():
     assert spectral.normalize_modes(5, 3) == (5, 5, 5)
 
 
-def test_packed_high_channel_mix_matches_einsum():
-    """CPU falls back to the plain einsum in every mode; all three
-    supported substitutions keep exact layout semantics."""
+def test_channel_mix_matches_einsum():
+    """The 1x1 channel mix is the plain einsum at the framework precision,
+    in every mode; bf16 activations keep their dtype, and 'mixed' mode runs
+    the dot with the fp32 weight and casts back."""
     rng = np.random.default_rng(11)
-    x = rng.standard_normal((5, 24, 64)).astype(np.float32)
+    x = rng.standard_normal((5, 64, 24)).astype(np.float32)
     m = rng.standard_normal((24, 16)).astype(np.float32)
     xj, mj = jnp.asarray(x), jnp.asarray(m)
+    want = np.einsum("dni,io->dno", x.astype(np.float64), m)
     for mode in ("highest", "high"):
         spectral.set_fp32_transform_precision(mode)
         try:
-            got = spectral.packed_high_dcn_mix(xj, mj)
-            want = jnp.einsum("dcn,co->don", xj, mj,
-                              precision=spectral._prec(xj.dtype))
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                       rtol=1e-4, atol=1e-5)
-            got = spectral.packed_high_channel_mix(
-                "...i,io->...o", jnp.swapaxes(xj, 1, 2), mj, -1)
-            np.testing.assert_allclose(
-                np.asarray(jnp.swapaxes(got, 1, 2)), np.asarray(want),
-                rtol=1e-4, atol=1e-5)
-            got = spectral.packed_high_channel_mix(
-                "...iw,io->...wo", xj, mj, -2)   # (d, i, w) -> (d, w, o)
-            np.testing.assert_allclose(
-                np.asarray(jnp.swapaxes(got, 1, 2)), np.asarray(want),
-                rtol=1e-4, atol=1e-5)
+            got = spectral.channel_mix(xj, mj)
+            assert got.dtype == jnp.float32
+            np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
+                                       atol=1e-4)
         finally:
             spectral.set_fp32_transform_precision("highest")
-    # bf16 inputs never pack (single native pass)
-    got = spectral.packed_high_dcn_mix(xj.astype(jnp.bfloat16), mj)
-    assert got.dtype == jnp.bfloat16 or got.dtype == jnp.float32
+    xb = xj.astype(jnp.bfloat16)
+    got = spectral.channel_mix(xb, mj)
+    assert got.dtype == jnp.bfloat16
+    spectral.set_bf16_exact(True)
+    try:
+        got_mixed = spectral.channel_mix(xb, mj)
+    finally:
+        spectral.set_bf16_exact(False)
+    assert got_mixed.dtype == jnp.bfloat16
+    want_b = np.einsum("dni,io->dno", np.asarray(xb, np.float64), m)
+    np.testing.assert_allclose(np.asarray(got_mixed, np.float64), want_b,
+                               rtol=1e-2, atol=5e-2)
+
+
+def _bench_spectral():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "bench_spectral.py")
+    spec = importlib.util.spec_from_file_location("bench_spectral", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("grid, modes", [
+    ((9, 11, 11, 8), (3, 4, 4)),
+    ((12, 10, 14, 4), (4, 5, 3)),
+    ((7, 16, 9, 2), (2, 8, 4)),
+], ids=["odd", "even-full", "mixed"])
+def test_fft_form_matches_pruned_chains(grid, modes):
+    """The reference's spectral core (full FFT + corner crop, zero-pad +
+    inverse FFT), as tools/bench_spectral.py times it, computes what the
+    pruned matmul chains compute."""
+    bench = _bench_spectral()
+    x = jnp.asarray(np.random.default_rng(5).standard_normal((1,) + grid),
+                    jnp.float32)
+    crop = spectral.dht_crop(x, modes)
+    np.testing.assert_allclose(np.asarray(bench.fft_crop(x, modes)),
+                               np.asarray(crop), atol=1e-5)
+    np.testing.assert_allclose(
+        np.asarray(bench.fft_pad_inverse(crop, grid[:3])),
+        np.asarray(spectral.dht_pad_inverse(crop, grid[:3])), atol=1e-4)

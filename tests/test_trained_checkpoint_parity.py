@@ -30,15 +30,15 @@ import jax.numpy as jnp
 import pandas as pd
 import pytest
 
-from multimodal_3d_image_segmentation_tpu import models
-from multimodal_3d_image_segmentation_tpu.data.dataset import InputData
-from multimodal_3d_image_segmentation_tpu.data.nifti import (read_img,
+from multimodal_3d_image_segmentation import models
+from multimodal_3d_image_segmentation.data.dataset import InputData
+from multimodal_3d_image_segmentation.data.nifti import (read_img,
                                                              write_image)
-from multimodal_3d_image_segmentation_tpu.data.normalization import (
+from multimodal_3d_image_segmentation.data.normalization import (
     normalize_modalities)
-from multimodal_3d_image_segmentation_tpu.metrics import statistics_regional
-from multimodal_3d_image_segmentation_tpu.runtime import train_test
-from multimodal_3d_image_segmentation_tpu.utils import (
+from multimodal_3d_image_segmentation.metrics import statistics_regional
+from multimodal_3d_image_segmentation.runtime import train_test
+from multimodal_3d_image_segmentation.utils import (
     import_reference_state_dict)
 from tests.reference_oracle import get_reference_nets
 
@@ -52,7 +52,7 @@ REGION_NAMES = ["background", "lesion", "core"]
 REGION_LABELS = [[0], [1, 2], [2]]
 
 FAMILIES = {
-    # flagship + one tower family (VERDICT r4 next #3)
+    # flagship + one tower family
     "hnoseg_xs": ("HNOSegXS",
                   dict(in_channels=2, out_channels=3, filters=8,
                        num_transform_blocks=[2, 2], num_modes=(3, 4, 4),

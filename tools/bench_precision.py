@@ -1,37 +1,38 @@
-"""Serving-precision quality on a TRAINED network (real TPU).
+"""Serving-precision quality on a TRAINED network (needs a GPU).
 
-Round-2 verdict: the 'high' (bf16x3) serving precision and the bf16
-recommendation were only backed by per-op error and random-init argmax
-agreement. This harness closes the case the way the reference frames
-quality (Dice, zero-shot super-resolution — reference README.md:10,
-Fig. 2):
+Quality the way the reference frames it (Dice, zero-shot
+super-resolution — reference README.md:10, Fig. 2):
 
-  1. train flagship HNOSeg-XS on synthetic blob volumes at 120x120x78
-     (fp32, 'highest') to convergence;
+  1. train a family on synthetic blob volumes at 120x120x78 (fp32,
+     'highest') to convergence;
   2. evaluate the SAME trained params on held-out volumes at 240x240x155
-     (zero-shot SR) under:
+     (zero-shot SR) under each serving mode:
        - fp32 / 'highest'  (the exactness oracle)
-       - fp32 / 'high' + use_pallas   (the shipped serving config)
-       - bfloat16 + use_pallas        (the high-throughput config)
-  3. report per-class Dice deltas vs the oracle + argmax agreement.
+       - fp32 / 'high' and 'default' (tensor-core fp32 products, see
+         PERF.md for the algorithm XLA picks)
+       - bfloat16, and 'mixed' (bf16 storage + fp32 weight islands)
+  3. report per-class Dice deltas vs the oracle, argmax agreement and the
+     per-volume time of each mode (host clock, compile excluded).
 
-``python tools/bench_precision.py --artifact`` writes
-``BENCH_PRECISION.json`` at the repo root.
+Usage: ``python tools/bench_precision.py [--families a,b] [--out FILE]``.
+The Dice bar is |delta| <= 0.001 (0.1%, BASELINE.md).
 """
-import sys
-sys.path.insert(0, "/root/repo")
-
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 
-from multimodal_3d_image_segmentation_tpu import losses, models
-from multimodal_3d_image_segmentation_tpu.ops import spectral
-from multimodal_3d_image_segmentation_tpu.runtime import (
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from multimodal_3d_image_segmentation import losses, models
+from multimodal_3d_image_segmentation.ops import spectral
+from multimodal_3d_image_segmentation.runtime import (
     build_optimizer, build_schedule, create_train_state, make_train_step)
 
 TRAIN_SHAPE = (120, 120, 78)
@@ -48,7 +49,6 @@ MODEL_FAMILIES = {
         4, 4, 24, 24, (10, 14, 14), "Fourier", **kw),
     "hnoseg": lambda **kw: models.NeuralOperatorSeg(
         4, 4, 24, 24, (10, 14, 14), "Hartley", **kw),
-    # same constructions the zoo benchmarks (tools/bench_all_models.py)
     "hartleymha": lambda **kw: models.HartleyMHASeg(
         4, 4, 24, 16, 4, (8, 12, 12), 2, **kw),
     "vnet_ds": lambda **kw: models.VNetDS(
@@ -61,12 +61,10 @@ def blob_volume(rng, shape):
     """Multi-blob volume with 3 foreground classes; geometry defined in
     normalized coordinates so low- and high-res draws are consistent.
 
-    Round-4 recipe fix: the original 0.3r class-3 core was 3-6 voxels
-    across at train resolution and keyed by no input channel — the
-    flagship never learned it, making its precision delta trivially
-    zero (VERDICT r3 weak #2). Shells are now wide enough to survive
-    120^3 rasterization and every foreground class has its own intensity
-    key, so a converged network has nonzero Dice on ALL classes.
+    Shells are wide enough to survive 120^3 rasterization and every
+    foreground class has its own intensity key, so a converged network
+    has nonzero Dice on ALL classes (a class it never learns would make
+    its precision delta trivially zero).
     """
     zz, yy, xx = np.meshgrid(*[np.linspace(0, 1, s) for s in shape],
                              indexing="ij")
@@ -134,15 +132,15 @@ def dice_per_class(pred, true, n_classes=4):
 
 
 def evaluate(params, mode, family="hnoseg_xs"):
-    """mode: ('highest'|'high', use_pallas, compute_dtype)"""
-    prec, use_pallas, dtype = mode
+    """mode: ('highest'|'high'|'default', compute_dtype)"""
+    from multimodal_3d_image_segmentation.utils.profiling import time_calls
+    prec, dtype = mode
     spectral.set_fp32_transform_precision(prec)
     # 'mixed': bf16 activations + fp32 weight/matrix islands
     spectral.set_bf16_exact(dtype == "mixed")
     if dtype == "mixed":
         dtype = "bfloat16"
-    model = MODEL_FAMILIES[family](use_pallas=use_pallas,
-                                   compute_dtype=dtype)
+    model = MODEL_FAMILIES[family](compute_dtype=dtype)
 
     # fresh closure per mode: precision is baked at trace time
     def fwd(p, v):
@@ -155,49 +153,52 @@ def evaluate(params, mode, family="hnoseg_xs"):
         pred = np.asarray(step(params, jnp.asarray(xs[i:i + 1])))[0]
         preds.append(pred)
         dices.append(dice_per_class(pred, ys[i]))
-    return np.asarray(dices), preds
+    sec = float(np.median(time_calls(step, params, jnp.asarray(xs[:1]),
+                                     iters=5)))
+    return np.asarray(dices), preds, sec
 
 
 def main():
-    from multimodal_3d_image_segmentation_tpu.utils.profiling import enable_compilation_cache
-    enable_compilation_cache()
+    import subprocess
+    from multimodal_3d_image_segmentation.utils.profiling import (
+        setup_compilation_cache)
+    setup_compilation_cache()
     ap = argparse.ArgumentParser()
-    ap.add_argument("--artifact", action="store_true")
+    ap.add_argument("--out", default=None, help="write results as JSON")
     ap.add_argument("--families", default="hnoseg_xs",
                     help="comma list of " + ",".join(MODEL_FAMILIES))
     args = ap.parse_args()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"needs a GPU, found {dev.platform}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
 
     modes = {
-        "fp32_highest": ("highest", False, "float32"),
-        "fp32_high_pallas": ("high", True, "float32"),
-        # fp32 activations + single-pass bf16 dots: the tower families'
-        # candidate fast serving point (ablate_tower_fp32: 1.07 vs
-        # 1.86 ms/block at 'high') — quality must clear the same bar
-        "fp32_default_pallas": ("default", True, "float32"),
-        "bf16_pallas": ("high", True, "bfloat16"),
+        "fp32_highest": ("highest", "float32"),
+        "fp32_high": ("high", "float32"),
+        "fp32_default": ("default", "float32"),
+        "bf16": ("high", "bfloat16"),
         # bf16 activation storage + fp32 weight/matrix islands
-        # (ops/spectral.set_bf16_exact): the round-5 candidate for
-        # pulling bf16-class speed inside the 0.1% bar
-        "mixed_pallas": ("high", True, "mixed"),
+        # (ops/spectral.set_bf16_exact)
+        "mixed": ("high", "mixed"),
     }
     results = {"train_shape": list(TRAIN_SHAPE),
                "eval_shape": list(EVAL_SHAPE),
-               "steps": STEPS, "backend": jax.default_backend()}
+               "steps": STEPS, "device_kind": dev.device_kind,
+               "card": card}
     for family in args.families.split(","):
         params, hist = train(family)
         fam_res = {"train_loss_history": hist}
         ref_dice, ref_preds = None, None
         for name, mode in modes.items():
-            try:
-                dices, preds = evaluate(params, mode, family)
-            except Exception as e:  # a mode failing must not eat the run
-                fam_res[name] = {"error": f"{type(e).__name__}: "
-                                          f"{str(e)[:300]}"}
-                print(family, name, "FAILED", type(e).__name__, flush=True)
-                continue
+            dices, preds, sec = evaluate(params, mode, family)
             mean_d = np.nanmean(dices, axis=0)
             rec = {"per_class_dice_mean":
-                   [round(float(v), 5) for v in mean_d]}
+                   [round(float(v), 5) for v in mean_d],
+                   "ms_per_volume": sec * 1e3}
             if name == "fp32_highest":   # deltas ONLY vs the true oracle
                 ref_dice, ref_preds = mean_d, preds
                 # a ~0-Dice class makes its delta trivially zero — flag
@@ -213,30 +214,9 @@ def main():
             fam_res[name] = rec
             print(family, name, rec, flush=True)
         results[family] = fam_res
-        if args.artifact:  # incremental: survive a later-family crash
-            _write(results)
-
-    results["protocol"] = (
-        "per family: train on synthetic blob volumes at 120x120x78 "
-        "(fp32 highest), zero-shot-SR eval of the SAME trained params "
-        "at 240x240x155 under each serving mode; "
-        "Dice bar: |delta| <= 0.001 (0.1%, BASELINE.md)")
-    if args.artifact:
-        _write(results)
-        print("wrote BENCH_PRECISION.json")
-
-
-def _write(results):
-    # merge-update: a family-filtered rerun must not drop the other
-    # families' committed rows
-    path = "/root/repo/BENCH_PRECISION.json"
-    out = {}
-    if os.path.exists(path):
-        with open(path) as f:
-            out = json.load(f)
-    out.update(results)
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
+        if args.out:  # incremental: survive a later-family crash
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
 
 
 if __name__ == "__main__":

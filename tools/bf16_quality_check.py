@@ -1,19 +1,27 @@
-"""bf16-vs-fp32 training quality comparison on synthetic data (real TPU).
+"""bf16-vs-fp32 training quality comparison on synthetic data (needs a GPU).
 
 Trains the same model/config/data with fp32 and bf16 activations and
-compares loss trajectories and foreground Dice — evidence for whether
-``compute_dtype='bfloat16'`` is quality-safe for this model family.
+compares loss trajectories, foreground Dice and the steady train-step
+time — evidence for whether ``compute_dtype='bfloat16'`` is quality-safe
+for this model family. Usage: ``python tools/bf16_quality_check.py
+[--out FILE]``.
 """
+import os
 import sys
-sys.path.insert(0, "/root/repo")
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 
-from multimodal_3d_image_segmentation_tpu import losses, models
-from multimodal_3d_image_segmentation_tpu.runtime import (
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from multimodal_3d_image_segmentation import losses, models
+from multimodal_3d_image_segmentation.runtime import (  # noqa: E402
     build_optimizer, build_schedule, create_train_state, make_train_step)
+from multimodal_3d_image_segmentation.utils.profiling import (  # noqa: E402
+    time_calls)
 
 
 def blob_batch(rng, batch=2, shape=(32, 32, 24), n_classes=4):
@@ -47,6 +55,7 @@ def run(compute_dtype, steps=150):
     params = model.init(jax.random.PRNGKey(0), x)["params"]
     state = create_train_state(model, params, tx)
     step = make_train_step(losses.pcc_loss, num_labels=4, donate=False)
+    step_s = float(np.median(time_calls(step, state, x, y, iters=10)))
     hist = []
     for i in range(steps):
         state, loss = step(state, x, y)
@@ -61,37 +70,41 @@ def run(compute_dtype, steps=150):
         denom = (np.count_nonzero(pred == lab)
                  + np.count_nonzero(true == lab))
         dices.append(2 * inter / denom if denom else float("nan"))
-    return hist, dices
+    return hist, dices, step_s
 
 
 def main():
     import argparse
     import json
+    import subprocess
     ap = argparse.ArgumentParser()
-    ap.add_argument("--artifact", action="store_true",
-                    help="write BENCH_BF16.json at the repo root")
+    ap.add_argument("--out", default=None, help="write results as JSON")
     args = ap.parse_args()
-    results = {}
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"needs a GPU, found {dev.platform}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    results = {"device_kind": dev.device_kind, "card": card}
     for dt in ["float32", "bfloat16"]:
-        hist, dices = run(dt)
+        hist, dices, step_s = run(dt)
         results[dt] = {"loss_history": [round(float(v), 5) for v in hist],
                        "per_class_dice": [round(float(d), 4)
-                                          for d in dices]}
+                                          for d in dices],
+                       "ms_per_step": step_s * 1e3}
         print(f"{dt:9s} loss: " + " ".join(f"{v:.4f}" for v in hist)
-              + f"  | per-class Dice: "
-              + " ".join(f"{d:.3f}" for d in dices), flush=True)
-    if args.artifact:
-        import jax as _jax
-        f32 = results["float32"]["per_class_dice"]
-        b16 = results["bfloat16"]["per_class_dice"]
-        results["dice_delta_bf16_minus_fp32"] = [
-            round(b - a, 4) for a, b in zip(f32, b16)]
-        results["backend"] = _jax.default_backend()
-        results["protocol"] = ("identical synthetic blob data/steps/seed; "
-                               "compute_dtype is the only difference")
-        with open("/root/repo/BENCH_BF16.json", "w") as f:
+              + "  | per-class Dice: "
+              + " ".join(f"{d:.3f}" for d in dices)
+              + f"  | {step_s * 1e3:.3f} ms/step", flush=True)
+    f32 = results["float32"]["per_class_dice"]
+    b16 = results["bfloat16"]["per_class_dice"]
+    results["dice_delta_bf16_minus_fp32"] = [
+        round(b - a, 4) for a, b in zip(f32, b16)]
+    if args.out:
+        with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-        print("wrote BENCH_BF16.json")
 
 
 if __name__ == "__main__":
